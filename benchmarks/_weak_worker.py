@@ -54,11 +54,9 @@ def main() -> int:
     ap.add_argument("--process-id", type=int, default=None)
     args = ap.parse_args()
 
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    cache = os.path.join(repo, ".jax_cache")
     import jax
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from repkiller_tpu.utils.runtime import setup_compile_cache
+    setup_compile_cache()
     jax.config.update("jax_platforms", "cpu")   # before any backend init
     if args.num_processes > 1:
         jax.config.update("jax_cpu_collectives_implementation", "gloo")

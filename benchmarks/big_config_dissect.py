@@ -1,7 +1,6 @@
 #!/usr/bin/env python
 """Per-stage dissection of the big configs (#4 dmel-scale 48 Mbp, #5
-chr1-scale 62 Mbp) — round-4 verdict item 4: they run at 2.2-2.7 Mbp/s
-vs the headline's ~8.1 Mbp/s with no recorded breakdown.
+chr1-scale 62 Mbp).
 
 Two measurements on the SAME genome as the config scripts:
 
@@ -13,9 +12,8 @@ Two measurements on the SAME genome as the config scripts:
    the cost of NOT having the canonical single-index trick in the
    sharded self-comparison path.
 
-Every timed rep rolls the genome (relay measurement rule,
-docs/PERF_NOTES.md) and device.compare / compare_sharded end with host
-fetches by construction. Prints JSONL records.
+Every timed rep rolls the genome, and device.compare / compare_sharded
+end with host fetches by construction. Prints JSONL records.
 """
 
 from __future__ import annotations
@@ -57,11 +55,8 @@ def main() -> int:
     ap.add_argument("--skip-sharded", action="store_true")
     args = ap.parse_args()
 
-    cache = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), ".jax_cache")
-    import jax
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from repkiller_tpu.utils.runtime import setup_compile_cache
+    setup_compile_cache()
     import numpy as np
     from repkiller_tpu.config import Config
     from repkiller_tpu import device

@@ -19,12 +19,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def jax_setup(platform=None):
-    cache = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), ".jax_cache")
-    os.makedirs(cache, exist_ok=True)
     import jax
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from repkiller_tpu.utils.runtime import setup_compile_cache
+    setup_compile_cache()
     if platform:
         jax.config.update("jax_platforms", platform)
     return jax

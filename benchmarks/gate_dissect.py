@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """A/B the coverage-gating wrapper on the headline workload (perf tool):
 times _stage_extend with gate_stride on vs off on identical seeds, and
-reports anchor/survivor counts. Run on the real chip."""
+reports anchor/survivor counts. Run on the GPU."""
 
 from __future__ import annotations
 
@@ -21,11 +21,9 @@ def main() -> int:
     ap.add_argument("--hit-capacity", type=int, default=1 << 20)
     args = ap.parse_args()
 
-    cache = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), ".jax_cache")
     import jax
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from repkiller_tpu.utils.runtime import setup_compile_cache
+    setup_compile_cache()
     import jax.numpy as jnp
     import numpy as np
     from repkiller_tpu.config import Config

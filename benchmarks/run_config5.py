@@ -2,11 +2,13 @@
 """BASELINE config #5: human-chr1-scale self-comparison streamed
 data-parallel across N>=2 hosts with interval merge.
 
-Multi-host bring-up: run one process per host with
+Multi-host bring-up: run one process per HOST (never several on one
+card — each JAX process reserves most of a card's memory) with
   --coordinator host0:port --num-processes N --process-id i
 (wires jax.distributed.initialize via dist.mesh.init_distributed; the
 mesh then spans every host's devices and the SAME sharded program runs —
-XLA routes the stage-A gathers over ICI within a slice and DCN across).
+XLA routes the stage-A gathers over NVLink within a host and the
+network across hosts).
 Single-process runs use all local devices; weak-scaling efficiency is
 reported as (bp/s at N devices) / (N * bp/s at 1 device) when --baseline
 is passed."""

@@ -1,21 +1,18 @@
 #!/usr/bin/env python
-"""Weak-scaling PROXY on the virtual CPU mesh (round-3 verdict item 5;
-rebuilt in round 5 after the round-4 harness — which recompiled config
-#5's full streamed program in every subprocess — timed out twice).
+"""Weak-scaling PROXY on the virtual CPU mesh.
 
-Only ONE physical TPU chip is reachable in this environment, so the
-BASELINE.json north star (>=90% weak-scaling efficiency to 2 hosts)
-cannot be measured on hardware. This script records the closest
-measurable proxy: a dedicated small sharded program (_weak_worker.py,
+The BASELINE.json north star (>=90% weak-scaling efficiency to 2 hosts)
+needs two hosts. This script records the closest proxy one machine can
+give: a dedicated small sharded program (_weak_worker.py,
 compare_sharded — the same program shape the dist test suite compiles in
 seconds on CPU) run as 1 process vs 2 REAL OS processes with gloo CPU
 collectives (1 device each), sizes scaled weakly (constant bp AND
 constant planted-repeat work per device). The number is NOT hardware
 efficiency — CPU "devices" are host threads and gloo is loopback TCP,
-both slower relative to compute than ICI — but it exercises the exact
-dispatch structure (jax.distributed init, global mesh, XLA collectives,
-replicated gather) that would ride ICI on a pod, and regressions in
-collective volume show up in it.
+both slower relative to compute than a real interconnect — but it
+exercises the exact dispatch structure (jax.distributed init, global
+mesh, XLA collectives, replicated gather) that a multi-host run uses,
+and regressions in collective volume show up in it.
 
 Each leg is bounded (--timeout, default 600 s); on timeout the
 per-device size HALVES and both legs rerun (--min-bp floors the
@@ -26,7 +23,7 @@ every leg.
 Prints one JSONL record:
   {"config": "weak_scaling_proxy_cpu", "per_device_bp": N,
    "bp_per_s_1dev": ..., "bp_per_s_2dev": ..., "efficiency": ...,
-   "caveat": "virtual CPU mesh + gloo loopback, not TPU hardware"}
+   "caveat": "virtual CPU mesh + gloo loopback, not GPU hardware"}
 """
 
 from __future__ import annotations
@@ -148,7 +145,7 @@ def main() -> int:
         "bp_per_s_1dev": r1["bp_per_s"],
         "bp_per_s_2dev": r2["bp_per_s"],
         "efficiency": round(eff, 3),
-        "caveat": "virtual CPU mesh + gloo loopback, not TPU hardware",
+        "caveat": "virtual CPU mesh + gloo loopback, not GPU hardware",
     }))
     return 0
 

@@ -2,7 +2,7 @@
 //
 // The reference ecosystem's C/C++ lives in its readers/writers and codec
 // (GECKO FASTA readers, word packing, CSV emit — SURVEY.md §2.1 "CSV
-// loader"/"Writers", §2.2 "FASTA ingestion"/"2-bit codec"); the TPU-native
+// loader"/"Writers", §2.2 "FASTA ingestion"/"2-bit codec"); the accelerator
 // framework keeps the same split: device compute is JAX/XLA/Pallas, host
 // byte-crunching is this C++ library (ctypes-bound, numpy fallback when
 // the shared object is unavailable).

@@ -1,4 +1,4 @@
-"""repkiller-tpu: TPU-native repeat-detection engine.
+"""repkiller-tpu: GPU repeat-detection engine in JAX.
 
 Brand-new framework with the capabilities of estebanpw/repkiller (see
 SURVEY.md; the reference mount was empty, so parity targets come from

@@ -118,7 +118,7 @@ def compare(
     """Compare sequence X against Y (or itself when y is None) and detect
     repeat fragments + families.
 
-    backend "device" runs the jitted TPU/XLA pipeline (device.compare),
+    backend "device" runs the jitted XLA/Pallas pipeline (device.compare),
     "sharded" the multi-device (data, shard)-mesh pipeline over every
     visible device (dist.sharded.compare_sharded), "oracle" the
     pure-numpy reference — all three produce bit-identical output

@@ -9,9 +9,9 @@ bucket is an ANCHOR and always extends; a later seed of the same bucket
 is skipped iff its k-mer window [px, px+k-1] lies inside its anchor's
 fragment x-extent — the fragment already covers it, so extending it
 again can only reproduce work the per-diagonal merge would throw away.
-This is the deterministic TPU formulation of GECKO FragHits' sequential
-"skip hits covered by the previous fragment on this diagonal" walk
-(docs/PERF_NOTES.md "Near-identical pairwise comparisons"): on a
+This is a deterministic, data-parallel formulation of GECKO FragHits'
+sequential "skip hits covered by the previous fragment on this diagonal"
+walk: on a
 near-identical strain pair the shared backbone seeds every min_hit_dist
 bp along one diagonal, and gating cuts the extension count per backbone
 diagonal from length/min_hit_dist to ~length/gate_stride.
@@ -25,13 +25,11 @@ Cost: on the banded-Pallas hot path, gating is FUSED into the kernel's
 two-phase structure (extend/banded_pallas.extend_banded_pallas_gated):
 phase 1 runs over all seeds once, conservative phase-1 coverage gates
 which non-anchors reach the full-depth pass, and the exact oracle
-coverage test re-runs against the anchors' final extents — four extra
+coverage test re-runs against the anchors' final extents — a few extra
 capacity-sized gathers over the ungated cost, instead of the generic
-wrapper's second full extension pass (which measured 2.7x the ungated
-extension on the headline workload where 98.8% of seeds are anchors —
-benchmarks/gate_dissect.py). Other kernels (ungapped, XLA banded) use
-the generic anchors-then-survivors wrapper below; all paths are
-bit-identical (tests/unit/test_gate.py).
+wrapper's second full extension pass. Other kernels (ungapped, XLA
+banded) use the generic anchors-then-survivors wrapper below; all paths
+are bit-identical (tests/unit/test_gate.py).
 
 Cap-binding caveat: when ``max_extend`` binds mid-repeat (repeat longer
 than the per-side cap), the anchor's fragment is truncated at the cap, so
@@ -47,18 +45,17 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
-import jax
 import jax.numpy as jnp
 
 from ..config import Config
-from ..extend import extend_dispatch
+from ..extend import banded_impl, extend_dispatch
 from ..extend.banded_pallas import extend_banded_pallas_gated
 from ..utils.scan import partition_live
 
 
 def extend_gated(
     spx: jnp.ndarray, spy: jnp.ndarray, svalid: jnp.ndarray,
-    cx: jnp.ndarray, cy: jnp.ndarray, cfg: Config, n_live=None,
+    cx: jnp.ndarray, cy: jnp.ndarray, cfg: Config,
 ) -> Tuple[Dict[str, jnp.ndarray], jnp.ndarray]:
     """Extend seeds with coverage gating -> (frag dict, valid mask).
 
@@ -67,7 +64,7 @@ def extend_gated(
     gate_stride == 0 degrades to a plain extend_dispatch pass-through.
     """
     if cfg.gate_stride <= 0:
-        frag = extend_dispatch(spx, spy, svalid, cx, cy, cfg, n_live=n_live)
+        frag = extend_dispatch(spx, spy, svalid, cx, cy, cfg)
         return frag, svalid
 
     n = spx.shape[0]
@@ -79,23 +76,20 @@ def extend_gated(
     ])
     anchor = svalid & ~prev_same
 
-    banded_impl = cfg.banded_impl
-    if banded_impl == "auto":
-        banded_impl = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if cfg.extend_mode == "banded" and banded_impl == "pallas":
+    impl = banded_impl(cfg)
+    if cfg.extend_mode == "banded" and impl != "xla":
         # hot path: gating fused into the two-phase kernel structure
         return extend_banded_pallas_gated(
             spx, spy, svalid, anchor, cx, cy,
             k=cfg.k, match=cfg.match, mismatch=cfg.mismatch,
             x_drop=cfg.x_drop, max_extend=cfg.max_extend, band=cfg.band,
             gap_open=cfg.gap_open, gap_extend=cfg.gap_extend,
-            n_live=n_live)
+            interpret=impl == "pallas_interpret")
 
-    # anchors to the front (stable: keeps (diag, px) order, which the
-    # Pallas extender's n_live contract requires — live seeds dense)
-    order_a, _, n_anchor = partition_live(anchor)
+    # anchors to the front (stable: keeps (diag, px) order)
+    order_a, _, _ = partition_live(anchor)
     fa = extend_dispatch(spx[order_a], spy[order_a], anchor[order_a],
-                         cx, cy, cfg, n_live=n_anchor)
+                         cx, cy, cfg)
 
     # every seed's bucket-anchor sits at compact slot cumsum(anchor)-1
     # (each bucket's first valid row IS an anchor, so the running count
@@ -108,9 +102,9 @@ def extend_gated(
         & (a_e >= spx + jnp.int32(cfg.k - 1))
     surv = svalid & ~anchor & ~covered
 
-    order_s, inv_s, n_surv = partition_live(surv)
+    order_s, inv_s, _ = partition_live(surv)
     fs = extend_dispatch(spx[order_s], spy[order_s], surv[order_s],
-                         cx, cy, cfg, n_live=n_surv)
+                         cx, cy, cfg)
 
     frag = {}
     for f in fa:

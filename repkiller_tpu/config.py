@@ -29,7 +29,7 @@ class Config:
     # ---- seed chaining / coverage gating (SURVEY.md §1 L3 "chaining";
     # GECKO FragHits skips hits covered by the previous fragment on the
     # same diagonal — this is the deterministic, shard/window-invariant
-    # TPU formulation of that skip) ----
+    # data-parallel formulation of that skip) ----
     gate_stride: int = 2048      # bucket width (bp of posX) for coverage
                                  # gating: the FIRST seed of every
                                  # (diagonal, px // gate_stride) bucket is
@@ -51,18 +51,20 @@ class Config:
     x_drop: int = 40             # stop when score falls this far below running max
     max_extend: int = 2048       # hard cap on per-side extension length (static shape)
     # banded affine-gap DP (BASELINE.json: "banded affine-gap DP kernel")
-    band: int = 15               # band half-width around the seed diagonal;
-                                 # default 15 -> width W = 2*band+1 = 31,
-                                 # which fills exactly four (8,128) VPU
-                                 # registers per DP row on TPU (band 16
-                                 # would pad W=33 to 40 sublanes, ~25%
-                                 # wasted vector work per row)
+    band: int = 15               # band half-width around the seed diagonal
+                                 # (width W = 2*band+1 = 31): the largest
+                                 # indel drift an alignment can absorb.
+                                 # Part of the output's definition — a
+                                 # different band is a different result
     gap_open: int = 8            # positive penalty; a gap of length g costs
     gap_extend: int = 2          #   gap_open + g * gap_extend (Gotoh affine)
-    banded_impl: str = "auto"    # "auto" | "xla" | "pallas" — banded kernel
-                                 # choice; auto = pallas on TPU, xla elsewhere
-                                 # (both bit-identical; tests assert it)
-    ungapped_impl: str = "auto"  # same choice for the ungapped x-drop kernel
+    banded_impl: str = "auto"    # "auto" | "xla" | "pallas" |
+                                 # "pallas_interpret" — banded kernel
+                                 # choice; auto = pallas on the GPU, xla
+                                 # elsewhere. "pallas" raises off the GPU;
+                                 # "pallas_interpret" runs the same kernel
+                                 # in the Pallas interpreter (tests). All
+                                 # bit-identical; tests assert it
 
     # ---- fragment acceptance ----
     min_len: int = 40            # min fragment length (bp on X)
@@ -122,10 +124,9 @@ class Config:
             raise ValueError(f"window must be >= 1, got {self.window}")
         if self.extend_mode not in ("ungapped", "banded"):
             raise ValueError(f"unknown extend_mode {self.extend_mode!r}")
-        if self.banded_impl not in ("auto", "xla", "pallas"):
+        if self.banded_impl not in ("auto", "xla", "pallas",
+                                    "pallas_interpret"):
             raise ValueError(f"unknown banded_impl {self.banded_impl!r}")
-        if self.ungapped_impl not in ("auto", "xla", "pallas"):
-            raise ValueError(f"unknown ungapped_impl {self.ungapped_impl!r}")
         if self.strands not in ("f", "r", "fr"):
             raise ValueError(f"strands must be 'f','r','fr', got {self.strands!r}")
         if self.gap_open < 0 or self.gap_extend < 0:

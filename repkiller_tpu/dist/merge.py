@@ -4,7 +4,7 @@ outputs (multihost_utils.process_allgather)").
 In the sharded pipeline every fragment-table column comes out of the jit
 replicated across the mesh, so single-host runs need nothing here. With
 multiple processes (one per host), each host holds the full replicated
-table too — XLA's collectives already merged it over ICI/DCN — but only
+table too — XLA's collectives already merged it — but only
 process 0 should touch the filesystem. These helpers make that explicit
 and give a fallback gather for arrays that are NOT replicated (e.g.
 per-host window blocks in a future physically-sharded index build).

@@ -11,8 +11,9 @@ One mesh, two axes:
   per-shard hit sets partition the global hit set).
 
 The reference has no distributed runtime at all (single node, out-of-core
-to disk — SURVEY.md §2.3); this layer is the TPU-native scaling story:
-XLA collectives over ICI within a slice / DCN across slices, no NCCL/MPI.
+to disk — SURVEY.md §2.3); this layer is the scaling story: XLA
+collectives (NCCL between GPUs), every card reaching every other over
+NVLink, so the mesh shape follows the algorithm alone.
 
 Multi-host entry: call :func:`init_distributed` once per process before
 building a mesh; it wires `jax.distributed.initialize` so

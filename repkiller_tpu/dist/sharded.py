@@ -11,8 +11,8 @@ Structure (one jitted program over a (data, shard) mesh):
            (d, s) blocks IS the single-device hit set, each hit exactly
            once — equality with the oracle is by construction, not by
            reconciliation (SURVEY.md §7 "Hard parts" #1).
-  stage B  per-device thin + extend (round 5). Device (d, s) all-gathers
-           its data row's hit blocks along the SHARD axis (one tiled ICI
+  stage B  per-device thin + extend. Device (d, s) all-gathers
+           its data row's hit blocks along the SHARD axis (one tiled
            collective, hit_capacity/n_data values), so it holds window
            d's COMPLETE hit set; it then thins and extends window-locally
            — NO global capacity-sized ops. This is exact, not
@@ -21,19 +21,18 @@ Structure (one jitted program over a (data, shard) mesh):
            and gate buckets (diag, px//gate_stride) never span a window
            boundary, and per-window thinning/gating equals global
            thinning/gating — the same alignment proof the streamed
-           driver rests on (dist/windows.py). The round-4 form ran one
-           GLOBAL thinning sort + globally-rebalanced extension; XLA's
-           SPMD partitioner rematerialises sorts and arbitrary-index
-           gathers by all-gathering the full arrays, so per-device work
-           GREW with total size — the round-5 weak-scaling proxy
-           measured 0.30 efficiency at 2 devices. Per-window stage B
+           driver rests on (dist/windows.py). A GLOBAL thinning sort +
+           globally-rebalanced extension would let XLA's SPMD
+           partitioner rematerialise sorts and arbitrary-index gathers
+           by all-gathering the full arrays, so per-device work would
+           GROW with total size. Per-window stage B
            keeps per-device work constant under weak scaling. The
            shard-axis devices of one data row recompute the same
            thin+extend (extension scales on the DATA axis; the shard
            axis scales index MEMORY); meshes should maximise n_data.
   stage C  global merge/accept/canonical sort over the concatenated
-           per-window fragment blocks (the one remaining global stage,
-           ~10% of headline cost). XLA inserts the gathers over ICI; no
+           per-window fragment blocks (the one remaining global
+           stage). XLA inserts the collectives (NCCL on GPUs); no
            hand-written collectives (SURVEY.md §2.3).
 
 The final fragment table is bit-identical to oracle.pipeline.compare and
@@ -142,9 +141,8 @@ def _canon_self_body(ci_fields, cx, cy_r, cfg: Config, win: int,
                      cap_dev: int, cap_b: int, blk_e: int,
                      win_seed_cap: int, n_data: int, n_shard: int):
     """Per-device body of the canonical sharded SELF path: ONE canonical
-    index serves both strands (the trick that makes the single-device
-    pipeline 5.4x faster than the generic windowed join at 48 Mbp —
-    benchmarks/big_config_dissect.py round 5). Device i of n_dev
+    index serves both strands, as in the single-device pipeline).
+    Device i of n_dev
     enumerates hit expansions for entry slice [i*blk_e, (i+1)*blk_e)
     (hits partition by source entry), regroups its hits by destination
     px-window with one all_to_all along the data axis, all_gathers the
@@ -221,8 +219,7 @@ def _regroup_thin_extend(hits_f, hits_r, cx, cy_r, cfg: Config, win: int,
             hx, hy, hv2.astype(bool), cfg.min_hit_dist,
             out_capacity=win_seed_cap)
         cy_cmp = cx if strand == 0 else cy_r
-        frag, fvalid = extend_gated(spx, spy, svalid, cx, cy_cmp, cfg,
-                                    n_live=n_seeds)
+        frag, fvalid = extend_gated(spx, spy, svalid, cx, cy_cmp, cfg)
         frag["strand"] = jnp.where(fvalid, jnp.int32(strand), 0)
         out.append((frag, fvalid, n_seeds.reshape(1)))
     totals = jnp.stack([t for _, (_, _, _, t) in pairs]).reshape(1, -1)
@@ -313,8 +310,7 @@ def _thin_extend_window(hpx_blk, hpy_blk, hv_blk, cx, cy_cmp, cfg: Config,
     hv = jax.lax.all_gather(hv_blk, SHARD_AXIS, tiled=True)
     spx, spy, svalid, n_seeds = filter_hits(hx, hy, hv, cfg.min_hit_dist,
                                             out_capacity=win_seed_cap)
-    frag, fvalid = extend_gated(spx, spy, svalid, cx, cy_cmp, cfg,
-                                n_live=n_seeds)
+    frag, fvalid = extend_gated(spx, spy, svalid, cx, cy_cmp, cfg)
     frag["strand"] = jnp.where(fvalid, jnp.int32(strand), 0)
     return frag, fvalid, n_seeds.reshape(1)
 
@@ -374,7 +370,7 @@ def _compare_sharded_jit(cx, cx_pad, cy, cfg: Config, self_cmp: bool,
     blk_overs = []
     if self_cmp:
         # canonical self path: ONE index, both strands, per-device entry
-        # slices (5.4x the generic windowed join at 48 Mbp — round 5)
+        # slices
         strand_outs, tot, cnt_max, cap_b, shard_cnt, blk_build = \
             _self_canonical_sharded(cx, cfg, mesh, win, cap_dev, cap_shard)
         for j, (fr, va, ns) in enumerate(strand_outs):
@@ -413,8 +409,8 @@ def _compare_sharded_jit(cx, cx_pad, cy, cfg: Config, self_cmp: bool,
         frag, valid, cfg.min_len, cfg.min_identity, y_len=cy_f.shape[0]
     )
     # Replicate the final table + totals across the whole mesh: this is
-    # SURVEY.md §3.4's "all_gather fragment tables" step. XLA rides ICI/DCN
-    # for the gather; afterwards every process holds the full result, so
+    # SURVEY.md §3.4's "all_gather fragment tables" step. XLA rides the
+    # interconnect for the gather; afterwards every process holds the full result, so
     # host-side reads (np.asarray) are legal under multi-process too.
     rep = NamedSharding(mesh, P())
     out = {k: jax.lax.with_sharding_constraint(v, rep) for k, v in out.items()}

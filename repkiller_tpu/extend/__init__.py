@@ -1,6 +1,7 @@
 """Seed extension kernels (SURVEY.md §1 L3): ungapped x-drop (chunked
-lax.while_loop), banded affine-gap Gotoh (XLA wavefront and Pallas TPU
-kernel — bit-identical, selected by Config.banded_impl)."""
+lax.while_loop in XLA), banded affine-gap Gotoh (XLA wavefront, and a
+Pallas kernel for the GPU — bit-identical, selected by
+Config.banded_impl)."""
 
 from __future__ import annotations
 
@@ -16,37 +17,32 @@ from ..config import Config
 from . import ungapped as _ungapped                  # noqa: E402
 from . import banded_xla as _banded_xla              # noqa: E402
 from . import banded_pallas as _banded_pallas        # noqa: E402
-from . import ungapped_pallas as _ungapped_pallas    # noqa: E402
 from .ungapped import extend_ungapped                # noqa: F401
 from .banded_xla import extend_banded                # noqa: F401
 from .banded_pallas import extend_banded_pallas      # noqa: F401
-from .ungapped_pallas import extend_ungapped_pallas  # noqa: F401
 
 
-def extend_dispatch(spx, spy, svalid, cx, cy, cfg: Config, n_live=None):
+def banded_impl(cfg: Config) -> str:
+    """Resolve Config.banded_impl: "auto" takes the Pallas kernel on the
+    GPU and the XLA wavefront elsewhere."""
+    if cfg.banded_impl == "auto":
+        return "pallas" if jax.default_backend() == "gpu" else "xla"
+    return cfg.banded_impl
+
+
+def extend_dispatch(spx, spy, svalid, cx, cy, cfg: Config):
     """Extend seeds -> fragment dict; picks the configured kernel."""
     if cfg.extend_mode == "ungapped":
-        impl = cfg.ungapped_impl
-        if impl == "auto":
-            impl = "pallas" if jax.default_backend() == "tpu" else "xla"
-        if impl == "pallas":
-            return extend_ungapped_pallas(
-                spx, spy, svalid, cx, cy,
-                k=cfg.k, match=cfg.match, mismatch=cfg.mismatch,
-                x_drop=cfg.x_drop, max_extend=cfg.max_extend, n_live=n_live,
-            )
         return extend_ungapped(
             spx, spy, svalid, cx, cy,
             k=cfg.k, match=cfg.match, mismatch=cfg.mismatch,
             x_drop=cfg.x_drop, max_extend=cfg.max_extend,
         )
-    impl = cfg.banded_impl
-    if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
+    impl = banded_impl(cfg)
     kw = dict(k=cfg.k, match=cfg.match, mismatch=cfg.mismatch,
               x_drop=cfg.x_drop, max_extend=cfg.max_extend,
               band=cfg.band, gap_open=cfg.gap_open, gap_extend=cfg.gap_extend)
-    if impl == "pallas":
-        return extend_banded_pallas(spx, spy, svalid, cx, cy, n_live=n_live,
-                                    **kw)
+    if impl in ("pallas", "pallas_interpret"):
+        return extend_banded_pallas(spx, spy, svalid, cx, cy,
+                                    interpret=impl == "pallas_interpret", **kw)
     return extend_banded(spx, spy, svalid, cx, cy, **kw)

@@ -1,604 +1,259 @@
-"""Banded affine-gap (Gotoh) extension — Pallas TPU kernel (SURVEY.md §7 M2).
+"""Banded affine-gap (Gotoh) extension — Pallas kernel for the GPU
+(Triton route).
 
 Semantics are DEFINED by oracle/banded.py and re-expressed in
 extend/banded_xla.py; this kernel must match both bit-identically
 (tests/unit/test_banded_pallas.py). What changes is the machine mapping:
 
 - extend/banded_xla.py carries the whole (n_seeds, W) DP state through a
-  `lax.while_loop`, so every DP row round-trips ~9 state arrays through
-  HBM — the arithmetic is trivial, the HBM traffic is the cost.
-- here the state lives in VMEM/registers for a block of 128 seeds
-  (seeds on VPU lanes, band on sublanes) and one DP row costs a handful
-  of 8x128 vector ops; HBM sees only the pre-gathered base windows going
-  in and 4 result vectors coming out.
-- the row loop is a `lax.while_loop` over 32-row GROUPS per block: each
-  group does two aligned VMEM block loads (x rows + y window rows) and
-  statically unrolls 32 DP rows over register slices, so no row pays a
-  dynamic load or select-reduce. A block whose seeds all died (x-drop)
-  exits at the next group boundary — bit-identical to per-row exit,
-  because pruning makes the all-dead state absorbing (dead rows are
-  no-ops), and trailing invalid capacity slots cost one group each
-  instead of max_extend rows.
+  `lax.while_loop`, so every DP row round-trips the state arrays through
+  device memory — the arithmetic is trivial, the memory traffic is the
+  cost, and the loop runs until the deepest seed of the whole batch dies.
+- here one thread owns one seed and keeps its band state (H, E and the
+  two identity counts for all W = 2*band+1 offsets) in registers, with
+  the row loop inside the kernel: no state reaches device memory between
+  rows. The W offsets are unrolled statically, so the horizontal-gap
+  donor is a running max carried across the unrolled offsets (argmax-last
+  tie rule, exactly the XLA scan's).
+- a block is one warp of 32 seeds, and it exits as soon as all 32 have
+  x-dropped — bit-identical to per-seed exit, because pruning makes the
+  all-dead state absorbing (dead rows are no-ops).
+- bases are read by position straight from the uint8 code arrays (the
+  genome sits in L2): one x load per row, and one y load per row because
+  the y window slides by one base per row (the window is carried in
+  registers and shifted).
 
-Band-on-sublanes layout: lane ``s`` is a seed, sublane ``o`` is band
-offset; the cell at DP row i, offset o is column j = i - band + o.
-Donors: diagonal at o (previous row), vertical at o+1 (previous row),
-horizontal at o-1 (current row — resolved by an argmax-last max-plus
-scan along sublanes, log2(W) shift/compare steps).
-
-Base windows are pre-gathered by XLA outside the kernel (codes ->
-(rows, chunk) uint8 with 255 = out-of-bounds, 4 = in-bounds N) in seed
-chunks under `lax.map`, so peak HBM footprint is per-chunk, not per-
-capacity.
+The kernel compiles only for the GPU. ``interpret=True`` runs it in the
+Pallas interpreter, which is how the CPU tests reach it; any other
+backend raises.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Dict, Tuple
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from ..utils.scan import partition_live as _partition_live
 
-NEG_INF = -(1 << 30)     # python int: becomes an immediate in-kernel,
-                         # NOT a captured traced constant (pallas forbids)
-SB = 128          # seeds per block (VPU lane count)
+NEG_INF = -(1 << 30)     # python int: an immediate inside the kernel
+BLOCK = 32               # seeds per block: one warp, one seed per thread
+NUM_WARPS = BLOCK // 32
 
 
-def _result_packer(max_extend: int, match: int):
-    """Pack a direction's (ei, ej, gain, idents) into two int32s so the
-    capacity-sized permutation gathers after a compacted kernel pass cost
-    2 gather ops instead of 4 (~7 cycles per gathered ELEMENT on TPU —
-    docs/PERF_NOTES.md "Gathers"). Static None when the config's bounds
-    don't fit 31 bits (huge max_extend); callers then gather unpacked."""
-    ebits = (max_extend + 1).bit_length()         # ei, ej in [0, max_extend]
-    gbits = (max_extend * max(match, 1) + 1).bit_length()
-    if 2 * ebits > 31 or gbits + ebits > 31:
-        return None
-
-    emask = jnp.int32((1 << ebits) - 1)
-
-    def pack(ei, ej, g, idn):
-        return ((ei << ebits) | ej), ((g << ebits) | idn)
-
-    def unpack(p1, p2):
-        return (p1 >> ebits, p1 & emask, p2 >> ebits, p2 & emask)
-
-    return pack, unpack
+def _check_backend(interpret: bool) -> None:
+    if not interpret and jax.default_backend() != "gpu":
+        raise RuntimeError(
+            "the banded Pallas kernel compiles only for the GPU (Triton "
+            f"route); the default backend is {jax.default_backend()!r}. "
+            "Use banded_impl='xla' here, or interpret=True "
+            "(banded_impl='pallas_interpret') to run it in the Pallas "
+            "interpreter.")
 
 
-def _up1(x, fill):
-    """result[o] = x[o+1]; last row = fill."""
-    return jnp.concatenate([x[1:], jnp.full_like(x[:1], fill)], axis=0)
-
-
-def _down(x, d, fill):
-    """result[o] = x[o-d]; first d rows = fill."""
-    return jnp.concatenate([jnp.full_like(x[:d], fill), x[:-d]], axis=0)
-
-
-def _upn(x, d, fill):
-    """result[o] = x[o+d]; last d rows = fill."""
-    return jnp.concatenate([x[d:], jnp.full_like(x[:d], fill)], axis=0)
-
-
-def _scan_max_plus(w, wid, WP):
-    """Inclusive scan along sublanes of the max-plus combine with
-    argmax-LAST tie rule (later offset wins w-ties) — Hillis-Steele."""
-    d = 1
-    while d < WP:
-        w_sh = _down(w, d, NEG_INF)
-        id_sh = _down(wid, d, 0)
-        take = w_sh > w               # earlier donor wins only strictly
-        wid = jnp.where(take, id_sh, wid)
-        w = jnp.maximum(w, w_sh)
-        d *= 2
-    return w, wid
-
-
-def _make_kernel(E: int, W: int, WP: int, band: int,
+def _make_kernel(E: int, jcap: int, band: int, base_off: int, step: int,
                  match: int, mismatch: int, x_drop: int,
-                 gap_open: int, gap_extend: int, jcap: int = None,
-                 group: int = 32):
-    # jcap: column (y-step) cap. Full runs use jcap == E (the oracle's
-    # y-window bound). Phase-1 runs use row cap E1 with jcap = E1 + band,
-    # so every cell computed in rows <= E1 is IDENTICAL to the full-depth
-    # run's cell (j <= i + band <= E1 + band <= full jcap) — which makes
-    # "all cells dead by row E1" a final verdict (two-phase extension).
-    if jcap is None:
-        jcap = E
-    # all scalars stay python ints -> compile-time immediates in the kernel
+                 gap_open: int, gap_extend: int, Lx: int, Ly: int):
+    """Kernel for one direction at row cap ``E`` and column cap ``jcap``.
+
+    Full runs use jcap == E (the oracle's y-window bound). Phase-1 runs use
+    row cap E1 with jcap = E1 + band, so every cell computed in rows <= E1
+    is IDENTICAL to the full-depth run's cell (j <= i + band <= E1 + band
+    <= full jcap) — which makes "all cells dead by row E1" a final verdict
+    (two-phase extension)."""
+    b = band
+    W = 2 * b + 1
     open_, ext, xd = int(gap_open), int(gap_extend), int(x_drop)
     m32, mm32 = int(match), int(mismatch)
-    b = band
+    i32 = jnp.int32
 
-    # Packed F-scan (the per-row hot loop's biggest op block): the
-    # horizontal-gap donor scan needs max-plus over (w, donor id) with
-    # argmax-LAST offset tie-breaking. Packing (biased w, offset, id)
-    # into ONE int32 makes each Hillis-Steele step a shift+max (2 vector
-    # ops) instead of shift/compare/2x select/max over two arrays (~6):
-    # packed max IS lexicographic (w, o) — donors come from lower
-    # offsets, so a w-tie keeps the current (later-offset) value,
-    # exactly the unpacked rule — and id rides in the low bits without
-    # ever deciding a comparison (o is unique per sublane). Bounds are
-    # static config ints; when they don't fit 31 bits the kernel falls
-    # back to the unpacked scan (bit-identical either way).
-    #   live w lower bound: M >= -xd + mismatch; E chains decay by ext
-    #   per row from >= -(xd + open + ext), so w = ME + o*ext >= L.
-    _L = -(xd + open_ + ext * (E + 1) + max(-mm32, 0)) - 1
-    _U = E * max(m32, 1) + (WP - 1) * max(ext, 1) + 1
-    _bid = (E + 1).bit_length()              # idents in [0, E]
-    _bo = max((WP - 1).bit_length(), 1)      # offset in [0, WP)
-    _bw = (_U - _L + 2).bit_length()
-    PACKF = _bw + _bo + _bid <= 31
-    _shw, _sho = _bo + _bid, _bid
+    def kernel(px_ref, py_ref, v_ref, cx_ref, cy_ref,
+               ei_ref, ej_ref, g_ref, id_ref, alive_ref):
+        px = px_ref[...]
+        py = py_ref[...]
+        valid = v_ref[...] != 0
 
-    LA = 32   # i8 VMEM sublane alignment: dynamic loads must be 32-aligned
-    WL = -(-WP // LA) * LA
-    G = group # DP rows per loop step: one aligned x block, one y block,
-              # G statically-unrolled rows with register slices — no
-              # per-row dynamic loads or select-reduces. 32 on TPU (the
-              # i8 VMEM alignment unit); small under the interpreter,
-              # where per-op cost dominates and dead blocks would pay
-              # G-row granularity for nothing.
-    YB = -(-(G + WP) // LA) * LA   # y rows covering one group's windows
+        def ybase(j):
+            """y code consumed at y-step j (scalar, same for the block);
+            255 where the step is outside [1, jcap] or the sequence."""
+            pos = py + (base_off + step * (j - 1))
+            ok = valid & (j >= 1) & (j <= jcap) & (pos >= 0) & (pos < Ly)
+            c = cy_ref[jnp.clip(pos, 0, Ly - 1)].astype(i32)
+            return jnp.where(ok, c, 255)
 
-    def kernel(sx_ref, sy_ref, out_ref):
-        o_col = jax.lax.broadcasted_iota(jnp.int32, (WP, SB), 0)
-        in_band = o_col < W
-        # loop-invariant per-offset vectors, computed once per block (the
-        # row loop's closure captures them as constants — Mosaic hoists)
-        oext = o_col * ext                       # F-scan bias / unbias
-        if PACKF:
-            opack = oext - (_L - 1)              # (ME + opack) << _shw
-            oor = o_col << _sho
-        fsub = open_ + oext                      # F = wmax_ex - fsub
+        def xbase(i):
+            pos = px + (base_off + step * (i - 1))
+            ok = valid & (pos >= 0) & (pos < Lx)
+            c = cx_ref[jnp.clip(pos, 0, Lx - 1)].astype(i32)
+            return jnp.where(ok, c, 255)
 
-        # ---- row 0 ----
-        # H(0, j=o-b): 0 at center; -(open + j*ext) right of center while
+        # ---- row 0: lane o holds column j = o - b ----
+        # H(0, j): 0 at the centre; -(open + j*ext) right of it while
         # every y-step 1..j is valid; NEG_INF elsewhere. Then x-drop vs 0.
-        ywin0 = sy_ref[0:WL, :].astype(jnp.int32)[:WP]  # ywin[o] = sy_pad[o]
-        # validity of y-step t+1 lives at sy_pad[b + t] = ywin0[b + t]
-        vstep = jnp.where(o_col >= b, (ywin0 < 5).astype(jnp.int32), 1)
-        # cumulative AND over rows (min-scan), then read at o (step j=o-b
-        # needs steps 1..j valid = rows b .. o-1 -> exclusive-from-b scan)
-        d = 1
-        vacc = vstep
-        while d < WP:
-            vacc = jnp.minimum(vacc, _down(vacc, d, 1))
-            d *= 2
-        ok_right = _down(vacc, 1, 1) == 1  # rows b..o-1 all valid
-        j0 = o_col - b
-        H = jnp.where(
-            j0 == 0, 0,
-            jnp.where((j0 > 0) & in_band & ok_right, -(open_ + j0 * ext),
-                      NEG_INF)).astype(jnp.int32)
-        H = jnp.where(H < -xd, NEG_INF, H)            # x-drop vs best0 = 0
-        Eg = jnp.full((WP, SB), NEG_INF, jnp.int32)
-        IH = jnp.zeros((WP, SB), jnp.int32)
-        IE = jnp.zeros((WP, SB), jnp.int32)
-        best = jnp.zeros((1, SB), jnp.int32)
-        # deferred endpoint tracking: each band cell keeps ITS best
-        # (score, earliest row, idents); the global winner with the
-        # sequential tie rules is recovered once at loop end (see the
-        # final reduction) instead of two cross-sublane reductions and
-        # a candidate merge EVERY row.
-        Hc = jnp.full((WP, SB), NEG_INF, jnp.int32)
-        ic = jnp.zeros((WP, SB), jnp.int32)
-        idc = jnp.zeros((WP, SB), jnp.int32)
+        Y = [ybase(o - b) for o in range(W)]
+        neg = jnp.full(px.shape, NEG_INF, i32)
+        zero = jnp.zeros(px.shape, i32)
+        H = [neg] * W
+        H[b] = jnp.where(valid, 0, NEG_INF)
+        run_ok = valid
+        for o in range(b + 1, W):
+            run_ok = run_ok & (Y[o] < 5)
+            h = -(open_ + (o - b) * ext)
+            H[o] = jnp.where(run_ok & (h >= -xd), h, NEG_INF)
+        live = valid
+        state = (i32(1), live, zero, zero, zero, zero,
+                 tuple(H), (neg,) * W, (zero,) * W, (zero,) * W, tuple(Y))
 
-        def cond(state):
-            i_base, H = state[0], state[1]
-            # group-granularity exit is bit-identical to per-row exit:
-            # when every H cell is NEG_INF the x-drop prune has already
-            # forced every E cell to NEG_INF too (best >= 0 > NEG_INF +
-            # xd), so the all-dead state is absorbing — extra unrolled
-            # rows on a dead block change nothing.
-            return (i_base < E) & jnp.any(H > NEG_INF)
+        def cond(s):
+            # (reduce_or has no Triton lowering; a max over int32 does)
+            return (s[0] <= E) & (jnp.max(s[1].astype(i32)) > 0)
 
-        def make_body(guarded):
-            # guarded=False drops the per-row j_idx window checks: for
-            # interior rows b < i <= jcap - b every in-band cell has
-            # 1 <= j_idx <= jcap (j_idx = i-b+o with o < W gives
-            # i-b <= j_idx <= i+b), so ymask degenerates to the static
-            # in_band and the two compares + two ands vanish. Head
-            # (i <= b) and tail (i > jcap - b) groups keep the guarded
-            # body — bit-identical by construction.
-            def body(state):
-                i_base, H, Eg, IH, IE, best, Hc, ic, idc = state
-                xb = pl.multiple_of(i_base, G)
-                xblk = sx_ref[pl.ds(xb, G), :].astype(jnp.int32)   # (G, SB)
-                yblk = sy_ref[pl.ds(xb, YB), :].astype(jnp.int32)  # (YB, SB)
+        def body(s):
+            i, _, best, bei, bej, bid, H, Eg, IH, IE, Y = s
+            xc = xbase(i)
+            xok = xc < 5
+            Y = Y[1:] + (ybase(i + b),)        # window slides one base
+            Hn, En, IHn, IEn = [], [], [], []
+            run_w, run_id = neg, zero          # exclusive max of ME + o*ext
+            g, ob, gid = neg, zero, zero       # row max, first offset
+            for o in range(W):
+                yc = Y[o]
+                yok = yc < 5
+                is_match = (yc == xc) & (yc < 4)
+                sub = jnp.where(is_match, m32, mm32)
+                M = jnp.where((H[o] > NEG_INF) & xok & yok, H[o] + sub,
+                              NEG_INF)
+                IM = IH[o] + is_match.astype(i32)
+                if o + 1 < W:
+                    Ec1 = jnp.where((H[o + 1] > NEG_INF) & xok,
+                                    H[o + 1] - (open_ + ext), NEG_INF)
+                    Ec2 = jnp.where((Eg[o + 1] > NEG_INF) & xok,
+                                    Eg[o + 1] - ext, NEG_INF)
+                    e = jnp.maximum(Ec1, Ec2)
+                    ie = jnp.where(Ec1 >= Ec2, IH[o + 1], IE[o + 1])
+                else:
+                    e, ie = neg, zero
+                ME = jnp.maximum(M, e)
+                IME = jnp.where(M >= e, IM, ie)
+                F = jnp.where((run_w > NEG_INF) & yok,
+                              run_w - (open_ + o * ext), NEG_INF)
+                h = jnp.maximum(ME, F)
+                ih = jnp.where(ME >= F, IME, run_id)
+                w = jnp.where(ME > NEG_INF, ME + o * ext, NEG_INF)
+                take = w >= run_w               # later donor wins w-ties
+                run_w = jnp.where(take, w, run_w)
+                run_id = jnp.where(take, IME, run_id)
+                up = h > g
+                g = jnp.maximum(g, h)
+                ob = jnp.where(up, o, ob)
+                gid = jnp.where(up, ih, gid)
+                Hn.append(h), En.append(e), IHn.append(ih), IEn.append(ie)
+            # endpoint: row max, ties -> smaller i + j
+            jb = i - b + ob
+            better = (g > best) | ((g == best) & (i + jb < bei + bej))
+            bei = jnp.where(better, i, bei)
+            bej = jnp.where(better, jb, bej)
+            bid = jnp.where(better, gid, bid)
+            best = jnp.where(better, g, best)
+            thr = best - xd
+            live = jnp.zeros(px.shape, bool)
+            for o in range(W):
+                dead = Hn[o] < thr
+                Hn[o] = jnp.where(dead, NEG_INF, Hn[o])
+                En[o] = jnp.where(dead, NEG_INF, En[o])
+                live = live | (Hn[o] > NEG_INF)
+            return (i + 1, live, best, bei, bej, bid,
+                    tuple(Hn), tuple(En), tuple(IHn), tuple(IEn), Y)
 
-                for r in range(1, G + 1):             # static unroll
-                    i = i_base + r
-                    ychar = yblk[r - 1:r - 1 + WP]    # ychar[o]=sy_pad[i-1+o]
-                    if guarded:
-                        j_idx = i - b + o_col
-                        ymask = (j_idx >= 1) & (j_idx <= jcap) & in_band
-                    else:
-                        ymask = in_band
-                    yok = (ychar < 5) & ymask
-                    xchar = xblk[r - 1:r]                            # (1, SB)
-                    xok = xchar < 5
-                    # (a ^ b) < 1 is a == b for non-negative codes: Mosaic
-                    # folds eq on freshly widened i8 operands back to an i8
-                    # cmpi eq the v5e target rejects ("Target does not
-                    # support this comparison"); xor + an ordered compare
-                    # lowers cleanly and is bit-exact for 0..255.
-                    # x == y < 4 already implies xchar < 4, ychar < 5 and
-                    # xchar < 5, so the ymask term is the only other factor.
-                    is_match = ((ychar ^ xchar) < 1) & (ychar < 4) & ymask
-                    sub = jnp.where(is_match, m32, mm32)
-
-                    Hu = _up1(H, NEG_INF)
-                    IHu = _up1(IH, 0)
-                    Eu = _up1(Eg, NEG_INF)
-                    IEu = _up1(IE, 0)
-
-                    M = jnp.where((H > NEG_INF) & xok & yok, H + sub, NEG_INF)
-                    IM = IH + is_match.astype(jnp.int32)
-
-                    Ec1 = jnp.where((Hu > NEG_INF) & xok, Hu - open_ - ext,
-                                    NEG_INF)
-                    Ec2 = jnp.where((Eu > NEG_INF) & xok, Eu - ext, NEG_INF)
-                    Enew = jnp.maximum(Ec1, Ec2)
-                    IEnew = jnp.where(Ec1 >= Ec2, IHu, IEu)
-
-                    ME = jnp.maximum(M, Enew)
-                    IME = jnp.where(M >= Enew, IM, IEnew)
-
-                    if PACKF:
-                        pw = jnp.where(ME > NEG_INF,
-                                       ((ME + opack) << _shw) | oor | IME, 0)
-                        d = 1
-                        while d < WP:
-                            pw = jnp.maximum(pw, _down(pw, d, 0))
-                            d *= 2
-                        pex = _down(pw, 1, 0)
-                        wmax_ex = (pex >> _shw) + (_L - 1)
-                        wid_ex = (pex & ((1 << _bid) - 1))
-                        F = jnp.where((pex > 0) & yok,
-                                      wmax_ex - fsub, NEG_INF)
-                    else:
-                        w = jnp.where(ME > NEG_INF, ME + oext, NEG_INF)
-                        wmax, wid = _scan_max_plus(w, IME, WP)
-                        wmax_ex = _down(wmax, 1, NEG_INF)
-                        wid_ex = _down(wid, 1, 0)
-                        F = jnp.where((wmax_ex > NEG_INF) & yok,
-                                      wmax_ex - fsub, NEG_INF)
-
-                    Hn = jnp.maximum(ME, F)
-                    IHn = jnp.where(ME >= F, IME, wid_ex)
-
-                    # per-cell candidate: strictly-greater keeps the cell's
-                    # EARLIEST maximum (for fixed o, i+j grows with i)
-                    Hn_pre = Hn
-                    upc = Hn_pre > Hc
-                    g = jnp.max(Hn_pre, axis=0, keepdims=True)         # (1, SB)
-
-                    prune = Hn < jnp.maximum(best, g) - xd
-                    Hn = jnp.where(prune, NEG_INF, Hn)
-                    Enew = jnp.where(prune, NEG_INF, Enew)
-
-                    if E % G:                 # rows past E in the last group
-                        upd = i <= E          # are no-ops (E a G-multiple in
-                        Hn = jnp.where(upd, Hn, H)         # practice: static
-                        Enew = jnp.where(upd, Enew, Eg)    # branch, no cost)
-                        IHn = jnp.where(upd, IHn, IH)
-                        IEnew = jnp.where(upd, IEnew, IE)
-                        upc = upc & upd
-                        g = jnp.where(upd, g, NEG_INF)
-                    Hc = jnp.where(upc, Hn_pre, Hc)
-                    ic = jnp.where(upc, i, ic)
-                    idc = jnp.where(upc, IHn, idc)
-                    best = jnp.maximum(best, g)
-                    H, Eg, IH, IE = Hn, Enew, IHn, IEnew
-
-                return (i_base + G, H, Eg, IH, IE, best, Hc, ic, idc)
-
-            return body
-
-        # Three regions, same semantics: guarded head groups (rows
-        # i <= b need the j_idx >= 1 check), fast interior, guarded tail
-        # groups (rows i > jcap - b need the j_idx <= jcap check; with
-        # jcap >= E + b — the phase-1 shape — there is no tail).
-        head_end = min(max(1, -(-b // G)) * G, E)
-        tail_rows = max(0, E - (jcap - b))
-        fast_end = max(head_end, E - (-(-tail_rows // G)) * G)
-        body_g = make_body(True)
-        body_f = make_body(False)
-
-        def cond_until(limit):
-            def c(state):
-                return (state[0] < limit) & jnp.any(state[1] > NEG_INF)
-            return c
-
-        state = (jnp.int32(0), H, Eg, IH, IE, best, Hc, ic, idc)
-        state = jax.lax.while_loop(cond_until(head_end), body_g, state)
-        if fast_end > head_end:
-            state = jax.lax.while_loop(cond_until(fast_end), body_f, state)
-        if E > fast_end:
-            state = jax.lax.while_loop(cond, body_g, state)
-        _, Hend, _, _, _, best, Hc, ic, idc = state[:9]
-
-        # final endpoint reduction, replaying the sequential rule as a
-        # total order: score desc, then i+j asc, then i asc (same-row
-        # ties have distinct i+j, so "min o among row maxima" is the
-        # i+j rule; equal (score, i+j) across rows keeps the earlier
-        # row). Baseline candidate (0 at i=j=0) wins any <=0 score.
-        ijc = ic + ic + (o_col - b)                    # i + j per cell
-        rh, rij, ri, rid = Hc, ijc, ic, idc
-        d = 1
-        while d < WP:
-            sh = _upn(rh, d, NEG_INF)
-            sij = _upn(rij, d, 0)
-            si = _upn(ri, d, 0)
-            sid = _upn(rid, d, 0)
-            take = (sh > rh) | ((sh == rh) & ((sij < rij) |
-                                              ((sij == rij) & (si < ri))))
-            rh = jnp.where(take, sh, rh)
-            rij = jnp.where(take, sij, rij)
-            ri = jnp.where(take, si, ri)
-            rid = jnp.where(take, sid, rid)
-            d *= 2
-        win = rh[0:1] > 0                              # beats baseline 0
-        best = jnp.where(win, rh[0:1], 0)
-        bei = jnp.where(win, ri[0:1], 0)
-        bej = jnp.where(win, rij[0:1] - ri[0:1], 0)
-        bid = jnp.where(win, rid[0:1], 0)
-        alive = jnp.max((Hend > NEG_INF).astype(jnp.int32), axis=0,
-                        keepdims=True)     # cells left after the row cap
-        out = jnp.concatenate(
-            [bei, bej, best, bid, alive,
-             jnp.zeros((3, SB), jnp.int32)], axis=0)       # (8, SB)
-        out_ref[:, :] = out
+        s = jax.lax.while_loop(cond, body, state)
+        ei_ref[...] = s[3]
+        ej_ref[...] = s[4]
+        g_ref[...] = s[2]
+        id_ref[...] = s[5]
+        alive_ref[...] = s[1].astype(i32)
 
     return kernel
 
 
-def _gather_window(codes: jnp.ndarray, start: jnp.ndarray, step: int,
-                   rows: int, lead_pad: int, valid: jnp.ndarray) -> jnp.ndarray:
-    """(rows, n) uint8 window: codes[start + step*(t - lead_pad)];
-    255 where out of bounds or seed invalid, in-sequence N stays 4."""
-    L = codes.shape[0]
-    t = jax.lax.broadcasted_iota(jnp.int32, (rows, start.shape[0]), 0) - lead_pad
-    pos = start[None, :] + jnp.int32(step) * t
-    ok = (pos >= 0) & (pos < L) & valid[None, :]
-    ch = codes[jnp.clip(pos, 0, L - 1)]
-    return jnp.where(ok, ch, jnp.uint8(255))
-
-
-def _gather_window_packed(words: jnp.ndarray, nmask: jnp.ndarray, L: int,
-                          start: jnp.ndarray, step: int, rows: int,
-                          lead_pad: int, valid: jnp.ndarray) -> jnp.ndarray:
-    """Bit-identical to _gather_window, reading the 2-bit packed arrays.
-
-    Gather-op count is what this path optimises (measured on-chip: TPU
-    gathers cost ~7 cycles per GATHERED ELEMENT regardless of width, so
-    fetching 16 words per op is ~16x cheaper than 16 single-word ops):
-    the packed words are viewed as (W/16, 16) rows of 256 bases and one
-    window fetches the ceil((rows+16)/256)+1 covering rows — 2 row
-    gathers for a 192-row window vs 24 element gathers before. The
-    word each 16-byte group needs is then selected from the fetched
-    rows with one-hot sums in registers, and the per-byte 2-bit
-    extraction is elementwise shift/mask on the VPU.
-
-    rows must be a multiple of 32 (the callers' tiling pad guarantees
-    it).
-    """
-    assert rows % 32 == 0
-    n = start.shape[0]
-    step = int(step)
-
-    # One combined row table: a 256-base row is 16 packed words + 8 mask
-    # words; fusing them into 24-wide rows makes the covering-row fetch
-    # ONE row gather instead of two (row gathers cost per ROW, and a
-    # 24-wide row costs less than a 16-wide plus an 8-wide —
-    # benchmarks/op_costs.py).
-    NW16 = -(-words.shape[0] // 16)
-    NM8 = -(-nmask.shape[0] // 8)
-    NROW = max(NW16, NM8)
-    w16 = jnp.pad(words, (0, NROW * 16 - words.shape[0])).reshape(NROW, 16)
-    m8 = jnp.pad(nmask, (0, NROW * 8 - nmask.shape[0])).reshape(NROW, 8)
-    combo = jnp.concatenate([w16, m8], axis=1)          # (NROW, 24)
-
-    # window position extremes (either step direction)
-    lo_pos = start + jnp.int32(step) * (-lead_pad if step > 0
-                                        else rows - 1 - lead_pad)
-    span = rows + 15                       # bases the word groups touch
-    NR = span // 256 + 2                   # covering 256-base rows
-    r0 = lo_pos >> 8                       # first covering row
-    g_nr = jax.lax.broadcasted_iota(jnp.int32, (NR, n), 0)
-    rws = jnp.clip(r0[None, :] + g_nr, 0, NROW - 1)
-    CR = combo[rws]                        # (NR, n, 24) uint32
-    WR = CR[..., :16]                      # (NR, n, 16)
-    MR = CR[..., 16:]                      # (NR, n, 8)
-
-    # 2-bit words: groups of 16 rows; select the group's word from the
-    # fetched rows by one-hot sum over (row, column) — all registers
-    g16 = jax.lax.broadcasted_iota(jnp.int32, (rows // 16, n), 0)
-    p_a = start[None, :] + jnp.int32(step) * (g16 * 16 - lead_pad)
-    p_b = start[None, :] + jnp.int32(step) * (g16 * 16 + 15 - lead_pad)
-    wbase = jnp.minimum(p_a, p_b) >> 4     # global word index
-    wrow = (wbase >> 4) - r0[None, :]      # covering-row offset 0..NR-1
-    wcol = wbase & 15
-
-    # word at wbase and wbase+1 (the group straddles two words)
-    w0 = jnp.zeros(wbase.shape, jnp.uint32)
-    w1 = jnp.zeros(wbase.shape, jnp.uint32)
-    wbase1 = wbase + 1
-    wrow1 = (wbase1 >> 4) - r0[None, :]
-    wcol1 = wbase1 & 15
-    for j in range(NR):
-        rj = WR[j]                                       # (n, 16)
-        pick0 = jnp.zeros(wbase.shape, jnp.uint32)
-        pick1 = jnp.zeros(wbase.shape, jnp.uint32)
-        for c in range(16):
-            pick0 = jnp.where(wcol == c, rj[None, :, c], pick0)
-            pick1 = jnp.where(wcol1 == c, rj[None, :, c], pick1)
-        w0 = jnp.where(wrow == j, pick0, w0)
-        w1 = jnp.where(wrow1 == j, pick1, w1)
-
-    # validity bitmap: groups of 32 rows, same structure (8-word rows)
-    g32 = jax.lax.broadcasted_iota(jnp.int32, (rows // 32, n), 0)
-    q_a = start[None, :] + jnp.int32(step) * (g32 * 32 - lead_pad)
-    q_b = start[None, :] + jnp.int32(step) * (g32 * 32 + 31 - lead_pad)
-    mbase = jnp.minimum(q_a, q_b) >> 5
-    mbase1 = mbase + 1
-    mrow = (mbase >> 3) - r0[None, :]
-    mcol = mbase & 7
-    mrow1 = (mbase1 >> 3) - r0[None, :]
-    mcol1 = mbase1 & 7
-    m0 = jnp.zeros(mbase.shape, jnp.uint32)
-    m1 = jnp.zeros(mbase.shape, jnp.uint32)
-    for j in range(NR):
-        rj = MR[j]                                       # (n, 8)
-        pick0 = jnp.zeros(mbase.shape, jnp.uint32)
-        pick1 = jnp.zeros(mbase.shape, jnp.uint32)
-        for c in range(8):
-            pick0 = jnp.where(mcol == c, rj[None, :, c], pick0)
-            pick1 = jnp.where(mcol1 == c, rj[None, :, c], pick1)
-        m0 = jnp.where(mrow == j, pick0, m0)
-        m1 = jnp.where(mrow1 == j, pick1, m1)
-
-    # per-byte extraction (elementwise)
-    t = jax.lax.broadcasted_iota(jnp.int32, (rows, n), 0) - lead_pad
-    pos = start[None, :] + jnp.int32(step) * t
-    word = jnp.where((pos >> 4) == jnp.repeat(wbase, 16, axis=0),
-                     jnp.repeat(w0, 16, axis=0), jnp.repeat(w1, 16, axis=0))
-    code = (word >> (2 * (pos & 15)).astype(jnp.uint32)) & jnp.uint32(3)
-
-    mword = jnp.where((pos >> 5) == jnp.repeat(mbase, 32, axis=0),
-                      jnp.repeat(m0, 32, axis=0), jnp.repeat(m1, 32, axis=0))
-    nbit = (mword >> (pos & 31).astype(jnp.uint32)) & jnp.uint32(1)
-
-    ok = (pos >= 0) & (pos < L) & valid[None, :]
-    ch = jnp.where(nbit == 1, code.astype(jnp.uint8), jnp.uint8(4))
-    return jnp.where(ok, ch, jnp.uint8(255))
-
-
 def _direction(px, py, seed_valid, cx, cy, base_off: int, step: int,
-               match, mismatch, x_drop, max_extend, band,
-               gap_open, gap_extend, seed_chunk: int, interpret: bool,
-               n_live=None, packed_x=None, packed_y=None, jcap_override=None):
-    """One direction for all seeds -> (ei, ej, gain, idents) int32[n].
+               rows: int, jcap: int, dp: dict, interpret: bool):
+    """One direction for all seeds at row cap ``rows`` -> (ei, ej, gain,
+    idents, alive) int32[n]; ``alive`` is 1 where cells were still alive
+    at the row cap.
 
-    n_live (traced scalar): true count of live seeds, dense at the front
-    (filter_hits compacts them). Chunks entirely past n_live skip BOTH the
-    XLA window gather and the kernel launch — extension cost tracks the
-    real seed count, not the static capacity.
-    """
+    The grid covers the whole capacity: a block whose seeds are all
+    invalid (past n_live) exits before its first row, so the cost tracks
+    the live seed count, not the static capacity."""
+    _check_backend(interpret)
     n = px.shape[0]
-    E = max_extend
-    jcap = max_extend if jcap_override is None else jcap_override
-    W = 2 * band + 1
-    WP = -(-W // 8) * 8
-    # uint8 VMEM tiling wants sublane counts in multiples of 32 — pad the
-    # gathered windows (extra rows read by the kernel's grouped block
-    # loads are 255-filled by the gather and masked in-kernel)
-    ex_rows = -(-E // 32) * 32
-    sy_rows = ex_rows + (-(-(32 + WP) // 32) * 32)   # last group's y block
-    assert seed_chunk % SB == 0
-    n_pad = -(-n // seed_chunk) * seed_chunk
+    n_pad = -(-n // BLOCK) * BLOCK
 
-    def pad(a, fill):
-        return jnp.concatenate(
-            [a, jnp.full((n_pad - n,), fill, a.dtype)]) if n_pad != n else a
+    def pad(a):
+        return jnp.pad(a, (0, n_pad - n)) if n_pad != n else a
 
-    pxp = pad(px, jnp.int32(0))
-    pyp = pad(py, jnp.int32(0))
-    vp = pad(seed_valid, False)
-
-    kern = _make_kernel(E, W, WP, band, match, mismatch, x_drop,
-                        gap_open, gap_extend, jcap=jcap,
-                        group=32 if not interpret else 4)
-    grid = seed_chunk // SB
-    call = pl.pallas_call(
+    kern = _make_kernel(rows, jcap, dp["band"], base_off, step,
+                        dp["match"], dp["mismatch"], dp["x_drop"],
+                        dp["gap_open"], dp["gap_extend"],
+                        cx.shape[0], cy.shape[0])
+    seeds = pl.BlockSpec((BLOCK,), lambda g: (g,))
+    whole = pl.BlockSpec(memory_space=pl.ANY)
+    out = jax.ShapeDtypeStruct((n_pad,), jnp.int32)
+    res = pl.pallas_call(
         kern,
-        grid=(grid,),
-        in_specs=[
-            pl.BlockSpec((ex_rows, SB), lambda g: (0, g),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((sy_rows, SB), lambda g: (0, g),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((8, SB), lambda g: (0, g),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((8, seed_chunk), jnp.int32),
+        grid=(n_pad // BLOCK,),
+        in_specs=[seeds, seeds, seeds, whole, whole],
+        out_specs=[seeds] * 5,
+        out_shape=[out] * 5,
+        compiler_params=pltriton.CompilerParams(num_warps=NUM_WARPS,
+                                                num_stages=1),
         interpret=interpret,
-    )
-
-    def one_chunk(cpx, cpy, cv):
-        if packed_x is not None:
-            wx, mx = packed_x
-            sx = _gather_window_packed(wx, mx, cx.shape[0],
-                                       cpx + jnp.int32(base_off), step,
-                                       ex_rows, 0, cv)
-        else:
-            sx = _gather_window(cx, cpx + jnp.int32(base_off), step,
-                                ex_rows, 0, cv)
-        if packed_y is not None:
-            wy, my = packed_y
-            sy = _gather_window_packed(wy, my, cy.shape[0],
-                                       cpy + jnp.int32(base_off), step,
-                                       sy_rows, band, cv)
-        else:
-            sy = _gather_window(cy, cpy + jnp.int32(base_off), step,
-                                sy_rows, band, cv)
-        return call(sx, sy)
-
-    n_chunks = n_pad // seed_chunk
-    cpx = pxp.reshape(n_chunks, seed_chunk)
-    cpy = pyp.reshape(n_chunks, seed_chunk)
-    cv = vp.reshape(n_chunks, seed_chunk)
-    if n_live is None:
-        live_chunks = jnp.int32(n_chunks)
-    else:
-        live_chunks = jnp.minimum(
-            (n_live.astype(jnp.int32) + seed_chunk - 1) // seed_chunk,
-            n_chunks)
-
-    def body(state):
-        c, out = state
-        res = one_chunk(cpx[c], cpy[c], cv[c])         # (8, seed_chunk)
-        out = jax.lax.dynamic_update_slice(out, res[None], (c, 0, 0))
-        return c + 1, out
-
-    init = (jnp.int32(0),
-            jnp.zeros((n_chunks, 8, seed_chunk), jnp.int32))
-    _, outs = jax.lax.while_loop(lambda s: s[0] < live_chunks, body, init)
-    outs = jnp.moveaxis(outs, 1, 0).reshape(8, n_pad)[:, :n]
-    return outs[0], outs[1], outs[2], outs[3], outs[4]
+        name="banded_extend",
+    )(pad(px), pad(py), pad(seed_valid.astype(jnp.int32)), cx, cy)
+    return tuple(r[:n] for r in res)
 
 
-def _compact_rerun(px, py, need, cx, cy, base_off, step, common, cap_rows,
-                   tail, px2, py2, packer, jcap=None, want_alive=False):
-    """Re-run one direction at row cap ``cap_rows`` for the ``need``
-    seeds, front-compacted via :func:`_partition_live`; results come
-    back in slot order (slots outside ``need`` carry garbage — callers
-    select with ``jnp.where(need, ...)``). Gather OP count is what this
-    optimises (TPU gathers cost ~7 cycles per gathered ROW regardless of
-    width — docs/PERF_NOTES.md): the 3 in-permutation gathers ride ONE
-    (n, 3) row gather, the packed results ONE (n, 2) row gather (4
-    unpacked gathers otherwise) + optionally the alive row."""
-    order, dest, n2 = _partition_live(need)
-    gin = jnp.stack([px, py, need.astype(jnp.int32)], axis=1)[order]
-    ei, ej, g, idn, alive = _direction(
-        gin[:, 0], gin[:, 1], gin[:, 2] != 0, cx, cy, base_off, step,
-        *common, cap_rows, *tail, n_live=n2, packed_x=px2, packed_y=py2,
-        jcap_override=jcap)
-    if packer is not None:
-        p1, p2 = packer[0](ei, ej, g, idn)
-        pg = jnp.stack([p1, p2], axis=1)[dest]
-        ei, ej, g, idn = packer[1](pg[:, 0], pg[:, 1])
-    else:
-        ei, ej, g, idn = ei[dest], ej[dest], g[dest], idn[dest]
-    return ei, ej, g, idn, (alive[dest] if want_alive else None)
+def _compact_rerun(px, py, need, cx, cy, base_off, step, rows, jcap, dp,
+                   interpret):
+    """Re-run one direction at row cap ``rows`` for the ``need`` seeds,
+    front-compacted via :func:`_partition_live` so that the blocks that
+    run hold only needed seeds; results come back in slot order (slots
+    outside ``need`` carry garbage — callers select with
+    ``jnp.where(need, ...)``)."""
+    order, dest, _ = _partition_live(need)
+    res = _direction(px[order], py[order], need[order], cx, cy, base_off,
+                     step, rows, jcap, dp, interpret)
+    res = jnp.stack(res, axis=1)[dest]
+    return tuple(res[:, c] for c in range(5))
+
+
+def _phase1(px, py, seed_valid, cx, cy, base_off, step, phase1_rows,
+               dp, interpret):
+    """Phase 1 at row cap ``phase1_rows`` over every seed -> (ei, ej, g,
+    idn, alive). Death by the cap is final (the jcap argument in
+    :func:`_make_kernel`), so only ``alive`` seeds need full depth."""
+    res = _direction(px, py, seed_valid, cx, cy, base_off, step,
+                     phase1_rows, phase1_rows + dp["band"], dp, interpret)
+    return res[:4] + (seed_valid & (res[4] == 1),)
+
+
+def _frag(px, py, k, match, left, right, valid):
+    lei, lej, lg, lid = left
+    rei, rej, rg, rid = right
+    km1 = jnp.int32(k - 1)
+    frag = {
+        "xStart": px - lei,
+        "yStart": py - lej,
+        "xEnd": px + km1 + rei,
+        "yEnd": py + km1 + rej,
+        "strand": jnp.zeros(px.shape[0], jnp.int32),
+        "score": jnp.int32(k * match) + lg + rg,
+        "idents": jnp.int32(k) + lid + rid,
+    }
+    frag["length"] = frag["xEnd"] - frag["xStart"] + 1
+    return {f: jnp.where(valid, v, 0) for f, v in frag.items()}
 
 
 def extend_banded_pallas_gated(
@@ -606,31 +261,18 @@ def extend_banded_pallas_gated(
     anchor: jnp.ndarray, cx: jnp.ndarray, cy: jnp.ndarray,
     k: int, match: int, mismatch: int, x_drop: int, max_extend: int,
     band: int, gap_open: int, gap_extend: int,
-    seed_chunk: int = 8192, interpret: bool | None = None,
-    n_live=None, packed: bool = True, phase1_rows: int = 192,
-    phase1_pre: int = 0,
+    interpret: bool = False, phase1_rows: int = 192,
 ) -> Tuple[Dict[str, jnp.ndarray], jnp.ndarray]:
     """Coverage gating FUSED into the two-phase extension (chain/diagonal.py
-    semantics, banded-Pallas hot path) -> (frag dict, valid mask).
+    semantics, banded-kernel hot path) -> (frag dict, valid mask).
 
     The generic anchors-then-survivors wrapper costs two full extension
-    passes (each with capacity-sized compaction sorts/gathers) even when
-    gating removes almost nothing — measured 2.7x the ungated extension on
-    the headline self-comparison, where 98.8% of seeds are their bucket's
-    anchor (benchmarks/gate_dissect.py, BENCH_r02 regression). Here gating
-    rides the two-phase structure instead, so its cost is four extra
-    capacity-sized gathers:
+    passes, each with capacity-sized compactions, even when gating
+    removes almost nothing. Here gating rides the two-phase structure
+    instead, so its cost is a few extra capacity-sized gathers:
 
       1. phase 1 (row cap ``phase1_rows``) runs over ALL seeds once — no
-         anchor reorder needed, results stay in slot order. With
-         ``phase1_pre > 0`` it instead runs as a cascade of row caps
-         (a ``phase1_pre`` tier over all seeds, then ``phase1_rows``
-         re-running only the compacted pre-tier survivors not already
-         gated by their anchor's pre-tier extent) — bit-identical
-         because death at a row cap is final and cap endpoints are
-         monotone in the cap. Off by default: measured slower on the
-         headline chip workload (docs/PERF_NOTES.md round-3 cascade
-         experiment);
+         anchor reorder needed, results stay in slot order;
       2. non-anchors whose k-mer window is covered by their bucket
          anchor's PHASE-1 x-extent are gated immediately: phase-1
          endpoints are lower bounds of full-depth endpoints (death at the
@@ -643,26 +285,16 @@ def extend_banded_pallas_gated(
          SUBSET of the ungated phase-2 set;
       4. the exact oracle coverage test then re-runs against the anchors'
          FINAL extents; the few non-anchors that were fully extended but
-         turn out covered are zeroed (work wasted on them is bounded by
-         the covered1/covered gap — anchors still growing past phase 1).
+         turn out covered are zeroed.
 
     Output is bit-identical to oracle.pipeline.extend_gated
     (tests/unit/test_gate.py): every reported fragment comes from the
     same full-depth extension, and the gated set is exactly
     ``~anchor & covered-by-final-anchor-extent``.
     """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    if packed:
-        from ..io.codec_device import pack_2bit_device
-        px2 = pack_2bit_device(cx)
-        py2 = px2 if cy is cx else pack_2bit_device(cy)
-    else:
-        px2 = py2 = None
-
+    dp = dict(match=match, mismatch=mismatch, x_drop=x_drop, band=band,
+              gap_open=gap_open, gap_extend=gap_extend)
     n = px.shape[0]
-    common = (match, mismatch, x_drop)
-    tail = (band, gap_open, gap_extend, seed_chunk, interpret)
     idx = jnp.arange(n, dtype=jnp.int32)
     # slot of my bucket's anchor = last anchor at or before me (valid seeds
     # are dense at the front and their first row is an anchor, so this is
@@ -670,109 +302,34 @@ def extend_banded_pallas_gated(
     anc_slot = jax.lax.cummax(jnp.where(anchor, idx, 0))
     km1 = jnp.int32(k - 1)
 
-    packer = _result_packer(max_extend, match)
+    def covered_by(lei, rei):
+        ex = jnp.stack([px - lei, px + km1 + rei], axis=1)[anc_slot]
+        return (seed_valid & ~anchor & (ex[:, 0] <= px)
+                & (ex[:, 1] >= px + km1))
 
-    def full_compact(base_off, step, need):
-        ei, ej, g, idn, _ = _compact_rerun(
-            px, py, need, cx, cy, base_off, step, common, max_extend,
-            tail, px2, py2, packer)
-        return ei, ej, g, idn
-
+    sides = ((k, +1), (-1, -1))
     if max_extend > phase1_rows + band:
-        pre = phase1_pre if 0 < phase1_pre < phase1_rows else phase1_rows
-
-        def phase1(base_off, step):
-            ei, ej, g, idn, alive = _direction(
-                px, py, seed_valid, cx, cy, base_off, step, *common,
-                pre, *tail, n_live=n_live, packed_x=px2,
-                packed_y=py2, jcap_override=pre + band)
-            return ei, ej, g, idn, seed_valid & (alive == 1)
-
-        rei1, rej1, rg1, rid1, r_aliveA = phase1(k, +1)
-        lei1, lej1, lg1, lid1, l_aliveA = phase1(-1, -1)
-        if pre < phase1_rows:
-            # tier-A gating + compacted tier-B re-run: a non-anchor whose
-            # k-mer window is covered by its anchor's tier-A extent is
-            # covered by the anchor's final extent too (row-cap endpoints
-            # are monotone in the cap — the jcap argument), so it needs
-            # neither the cap-``phase1_rows`` re-run nor full depth. On a
-            # near-identical pair (config #3) this drops the backbone
-            # non-anchors after ``pre`` rows instead of ``phase1_rows``.
-            exA = jnp.stack([px - lei1, px + km1 + rei1], axis=1)[anc_slot]
-            covA = (seed_valid & ~anchor & (exA[:, 0] <= px)
-                    & (exA[:, 1] >= px + km1))
-            nB_r = r_aliveA & ~covA
-            nB_l = l_aliveA & ~covA
-
-            def tierB(base_off, step, need):
-                return _compact_rerun(
-                    px, py, need, cx, cy, base_off, step, common,
-                    phase1_rows, tail, px2, py2, packer,
-                    jcap=phase1_rows + band, want_alive=True)
-
-            reiB, rejB, rgB, ridB, r_alB = tierB(k, +1, nB_r)
-            leiB, lejB, lgB, lidB, l_alB = tierB(-1, -1, nB_l)
-            rei1 = jnp.where(nB_r, reiB, rei1)
-            rej1 = jnp.where(nB_r, rejB, rej1)
-            rg1 = jnp.where(nB_r, rgB, rg1)
-            rid1 = jnp.where(nB_r, ridB, rid1)
-            lei1 = jnp.where(nB_l, leiB, lei1)
-            lej1 = jnp.where(nB_l, lejB, lej1)
-            lg1 = jnp.where(nB_l, lgB, lg1)
-            lid1 = jnp.where(nB_l, lidB, lid1)
-            # merged alive-at-phase1_rows; False for tier-A-gated seeds is
-            # safe — covered1 below excludes them from ``maybe`` anyway
-            # (anchor extents only grow from tier A to tier B)
-            r_alive = nB_r & (r_alB == 1)
-            l_alive = nB_l & (l_alB == 1)
-        else:
-            r_alive, l_alive = r_aliveA, l_aliveA
-        ex1 = jnp.stack([px - lei1, px + km1 + rei1], axis=1)[anc_slot]
-        covered1 = (seed_valid & ~anchor & (ex1[:, 0] <= px)
-                    & (ex1[:, 1] >= px + km1))
-        maybe = seed_valid & ~covered1
-        need_r = maybe & r_alive
-        need_l = maybe & l_alive
-        rei2, rej2, rg2, rid2 = full_compact(k, +1, need_r)
-        lei2, lej2, lg2, lid2 = full_compact(-1, -1, need_l)
-        rei = jnp.where(need_r, rei2, rei1)
-        rej = jnp.where(need_r, rej2, rej1)
-        rg = jnp.where(need_r, rg2, rg1)
-        rid = jnp.where(need_r, rid2, rid1)
-        lei = jnp.where(need_l, lei2, lei1)
-        lej = jnp.where(need_l, lej2, lej1)
-        lg = jnp.where(need_l, lg2, lg1)
-        lid = jnp.where(need_l, lid2, lid1)
+        p1 = [_phase1(px, py, seed_valid, cx, cy, off, st, phase1_rows,
+                         dp, interpret) for off, st in sides]
+        maybe = seed_valid & ~covered_by(p1[1][0], p1[0][0])
+        right, left = [], []
+        for (off, st), r1, out in zip(sides, p1, (right, left)):
+            need = maybe & r1[4]
+            r2 = _compact_rerun(px, py, need, cx, cy, off, st, max_extend,
+                                max_extend, dp, interpret)
+            out.extend(jnp.where(need, a, b) for a, b in zip(r2[:4], r1[:4]))
     else:
         # max_extend fits a single pass: extend everything full-depth and
         # let the final coverage test discard the gated rows (identical
         # output; covered seeds' extensions are computed then dropped)
-        rei, rej, rg, rid, _ = _direction(
-            px, py, seed_valid, cx, cy, k, +1, *common, max_extend, *tail,
-            n_live=n_live, packed_x=px2, packed_y=py2)
-        lei, lej, lg, lid, _ = _direction(
-            px, py, seed_valid, cx, cy, -1, -1, *common, max_extend, *tail,
-            n_live=n_live, packed_x=px2, packed_y=py2)
+        right, left = (list(_direction(px, py, seed_valid, cx, cy, off, st,
+                                       max_extend, max_extend, dp,
+                                       interpret)[:4])
+                       for off, st in sides)
 
     # exact oracle coverage against the anchors' final extents
-    exF = jnp.stack([px - lei, px + km1 + rei], axis=1)[anc_slot]
-    covered = (seed_valid & ~anchor & (exF[:, 0] <= px)
-               & (exF[:, 1] >= px + km1))
-    valid_out = seed_valid & ~covered
-
-    seed_score = jnp.int32(k * match)
-    frag = {
-        "xStart": px - lei,
-        "yStart": py - lej,
-        "xEnd": px + km1 + rei,
-        "yEnd": py + km1 + rej,
-        "strand": jnp.zeros(n, jnp.int32),
-        "score": seed_score + lg + rg,
-        "idents": jnp.int32(k) + lid + rid,
-    }
-    frag["length"] = frag["xEnd"] - frag["xStart"] + 1
-    frag = {f: jnp.where(valid_out, v, 0) for f, v in frag.items()}
-    return frag, valid_out
+    valid_out = seed_valid & ~covered_by(left[0], right[0])
+    return _frag(px, py, k, match, left, right, valid_out), valid_out
 
 
 def extend_banded_pallas(
@@ -780,80 +337,26 @@ def extend_banded_pallas(
     cx: jnp.ndarray, cy: jnp.ndarray,
     k: int, match: int, mismatch: int, x_drop: int, max_extend: int,
     band: int, gap_open: int, gap_extend: int,
-    seed_chunk: int = 8192, interpret: bool | None = None,
-    n_live=None, packed: bool = True, two_phase: bool = True,
-    phase1_rows: int = 192, phase1_pre: int = 0,
+    interpret: bool = False, phase1_rows: int = 192,
 ) -> Dict[str, jnp.ndarray]:
-    """Drop-in replacement for extend/banded_xla.extend_banded (bit-identical).
+    """Drop-in replacement for extend/banded_xla.extend_banded
+    (bit-identical). A pass at row cap ``phase1_rows`` runs over every
+    seed and only its survivors, compacted to the front, re-run at full
+    depth — deep repeat seeds stop dragging whole blocks of shallow seeds
+    through max_extend rows. When ``max_extend <= phase1_rows + band``
+    one full-depth pass does it all."""
+    dp = dict(match=match, mismatch=mismatch, x_drop=x_drop, band=band,
+              gap_open=gap_open, gap_extend=gap_extend)
 
-    interpret=None auto-selects Pallas interpreter mode off-TPU so the CPU
-    test mesh can run the same code path.
-    """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    if packed:
-        # 2-bit HBM-resident form (BASELINE north star): packed once here,
-        # shared by both directions' window gathers
-        from ..io.codec_device import pack_2bit_device
-        px2 = pack_2bit_device(cx)
-        py2 = px2 if cy is cx else pack_2bit_device(cy)
-    else:
-        px2 = py2 = None
-    def run_dir(base_off, step):
-        common = (match, mismatch, x_drop)
-        tail = (band, gap_open, gap_extend, seed_chunk, interpret)
-        if not two_phase or max_extend <= phase1_rows + band:
-            ei, ej, g, idn, _ = _direction(
-                px, py, seed_valid, cx, cy, base_off, step, *common,
-                max_extend, *tail, n_live=n_live, packed_x=px2, packed_y=py2)
-            return ei, ej, g, idn
-        # Cascade of row caps: a pass at cap C computes cells identical to
-        # the full-depth run's (column cap C + band — the jcap argument),
-        # so death by the cap is FINAL and survivors can be compacted to
-        # the front and re-run from scratch at the next cap — deep repeat
-        # seeds stop dragging whole blocks of shallow seeds through
-        # max_extend rows. Tiers pre=96 -> 192 -> full fit the measured
-        # survival curve (96: ~17%, 192: ~0.6% on the headline workload;
-        # docs/PERF_NOTES.md "Extension economics"): expected block-rows
-        # per seed drop from ~192 to ~96 + 0.17*192 ~ 129.
-        packer = _result_packer(max_extend, match)
-        pre = phase1_pre if 0 < phase1_pre < phase1_rows else phase1_rows
-        ei, ej, g, idn, alive = _direction(
-            px, py, seed_valid, cx, cy, base_off, step, *common,
-            pre, *tail, n_live=n_live, packed_x=px2, packed_y=py2,
-            jcap_override=pre + band)
-        alive = (alive == 1) & seed_valid
-        if pre < phase1_rows:
-            eiB, ejB, gB, idB, alB = _compact_rerun(
-                px, py, alive, cx, cy, base_off, step, common,
-                phase1_rows, tail, px2, py2, packer,
-                jcap=phase1_rows + band, want_alive=True)
-            ei = jnp.where(alive, eiB, ei)
-            ej = jnp.where(alive, ejB, ej)
-            g = jnp.where(alive, gB, g)
-            idn = jnp.where(alive, idB, idn)
-            alive = alive & (alB == 1)
-        ei2, ej2, g2, id2, _ = _compact_rerun(
-            px, py, alive, cx, cy, base_off, step, common, max_extend,
-            tail, px2, py2, packer)
-        return (jnp.where(alive, ei2, ei),
-                jnp.where(alive, ej2, ej),
-                jnp.where(alive, g2, g),
-                jnp.where(alive, id2, idn))
+    def run_dir(off, st):
+        if max_extend <= phase1_rows + band:
+            return _direction(px, py, seed_valid, cx, cy, off, st,
+                              max_extend, max_extend, dp, interpret)[:4]
+        r1 = _phase1(px, py, seed_valid, cx, cy, off, st, phase1_rows,
+                        dp, interpret)
+        r2 = _compact_rerun(px, py, r1[4], cx, cy, off, st, max_extend,
+                            max_extend, dp, interpret)
+        return tuple(jnp.where(r1[4], a, b) for a, b in zip(r2[:4], r1[:4]))
 
-    rei, rej, rg, rid = run_dir(k, +1)
-    lei, lej, lg, lid = run_dir(-1, -1)
-    n = px.shape[0]
-    seed_score = jnp.int32(k * match)
-    frag = {
-        "xStart": px - lei,
-        "yStart": py - lej,
-        "xEnd": px + jnp.int32(k - 1) + rei,
-        "yEnd": py + jnp.int32(k - 1) + rej,
-        "strand": jnp.zeros(n, jnp.int32),
-        "score": seed_score + lg + rg,
-        "idents": jnp.int32(k) + lid + rid,
-    }
-    frag["length"] = frag["xEnd"] - frag["xStart"] + 1
-    frag = {f: jnp.where(seed_valid, v, 0) for f, v in frag.items()}
-    return frag
+    return _frag(px, py, k, match, run_dir(-1, -1), run_dir(k, +1),
+                 seed_valid)

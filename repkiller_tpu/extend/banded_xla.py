@@ -12,8 +12,9 @@ associative max-plus scan: F(o) = max_{o'<o}(ME(o') - open - (o-o')*ext)
 which reproduces the oracle's per-step tie rule (later donor wins w-ties)
 exactly — see tests/unit/test_device.py for the bit-equality suite.
 
-A Pallas version with seeds on lanes replaces this for the hot path
-(extend/banded_pallas.py); both must match this spec bit-identically.
+A Pallas kernel with one seed per GPU thread replaces this for the hot
+path (extend/banded_pallas.py); both must match this spec
+bit-identically.
 """
 
 from __future__ import annotations

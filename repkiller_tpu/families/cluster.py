@@ -29,30 +29,20 @@ from ..oracle import pipeline as orc
 EDGE_CHUNK = 1 << 22   # edges materialised at once (~64 MB of working set)
 
 # Edge-count bounds for the ON-DEVICE propagation path
-# (families/device.py). Round-5 on-chip measurements settled the
-# round-4 "until the on-chip win is recorded" question — the answer is
-# a recorded LOSS at every scale tried (benchmarks/cluster_chip_bench
-# .py, BASELINE.md round-5 clustering rows, TPU v5e):
-#
-#   config #2,  5.1k edges:  host   1.7 ms   device   38 ms
-#   config #4,  108k edges:  host    89 ms   device  277 ms
-#   synthetic, 3.52M edges:  host  1.02 s    device 2.93 s
-#
-# Small tables are dispatch-bound on device; at millions of edges the
-# device while_loop pays ~10 rounds of bucketed-capacity scatters/
-# gathers where the host's edge-cached np.minimum.at rounds collapse
-# after the first pass. The DEFAULT is therefore the host path
+# (families/device.py). The device while_loop pays ~10 rounds of
+# bucketed-capacity scatters/gathers where the host's edge-cached
+# np.minimum.at rounds collapse after the first pass, and small tables
+# are dispatch-bound on a device. The DEFAULT is therefore the host path
 # everywhere; the device path stays available (bit-identical,
 # tests/unit/test_families.py) via REPKILLER_DEVICE_CLUSTER=1 or
-# device_min_edges for workloads beyond the measured range. Capped at
-# DEVICE_EDGE_CAP materialised edges (HBM bound).
+# device_min_edges (benchmarks/cluster_chip_bench.py times both). Capped
+# at DEVICE_EDGE_CAP materialised edges (device-memory bound).
 DEVICE_MIN_EDGES = 1 << 18
 DEVICE_EDGE_CAP = 1 << 25
 
 
 def _device_cluster_enabled() -> bool:
-    """Opt-in only: the measured default is the host path (see the
-    recorded loss above); XLA CPU additionally lowers scatter to a
+    """Opt-in only: the default is the host path (see above); XLA CPU additionally lowers scatter to a
     serial loop that loses badly to numpy, so the CPU backend never
     takes this path."""
     import os

@@ -1,6 +1,6 @@
 """On-device repeat-family clustering (SURVEY.md §1 L4: "overlap graph ->
-connected components, iterative label propagation on TPU, finalize on
-host"; round-3 verdict item 6).
+connected components, iterative label propagation on the device,
+finalize on host").
 
 The host computes only the O(m log m) interval table and neighbor ranges
 (families/cluster.py _edge_ranges — measured negligible even at 10^5
@@ -8,9 +8,7 @@ fragments). Everything edge-shaped runs in ONE jitted program:
 
 - range -> edge expansion with the standard capacity + scatter/cummax
   owner-recovery pattern (same mechanism as seeds/self_join._expand;
-  SURVEY.md §7 "Hard parts" #3) — the host np.repeat expansion measured
-  ~4 s at 3.3M edges on this host, the device version is ~5 capacity
-  passes at ~7 cycles/element;
+  SURVEY.md §7 "Hard parts" #3), ~5 capacity-sized passes;
 - the length-ratio edge filter (killed edges become (0, 0) self-loops,
   which are no-ops under scatter-min);
 - min-label propagation to fixpoint: per round every edge scatter-mins
@@ -22,9 +20,9 @@ index — exactly the oracle union-find's root (union-by-smaller-index
 keeps roots minimal), so the result is bit-identical to
 oracle.pipeline.cluster_families (tests/unit/test_families.py).
 
-The path is only taken on a TPU backend by default (cluster.py): XLA CPU
-lowers scatter to a serial loop that loses to numpy's ufunc.at, so CPU
-runs keep the streamed host path; tests force the device path with
+The path is opt-in and never taken on the CPU backend (cluster.py): XLA
+CPU lowers scatter to a serial loop that loses to numpy's ufunc.at, so
+CPU runs keep the streamed host path; tests force the device path with
 ``device_min_edges=0``. Shapes are bucketed to powers of two so repeated
 calls at similar scales reuse compiled programs.
 """

@@ -1,7 +1,7 @@
 """On-device k-mer index build (SURVEY.md §1 L1, §7 M0).
 
 The reference ecosystem builds its dictionary with external disk sorts
-(GECKO `words`/`sortWords`/`w2hd`, SURVEY.md §2.2); the TPU-native design
+(GECKO `words`/`sortWords`/`w2hd`, SURVEY.md §2.2); the device design
 replaces that with flat sorted arrays in HBM: extract every k-mer with
 shifts/gathers, then one `lax.sort` over (kmer, validity, position).
 

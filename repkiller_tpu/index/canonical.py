@@ -26,10 +26,8 @@ entries (``alt_before``) — all from O(n) segmented cumsums. Partner
 ENUMERATION wants the flag-major view-B order, but only the partner
 POSITIONS are ever gathered there, so view B is materialised as one
 scattered ``pos_b`` array (each entry's B slot is its subrun start plus
-its own rank) instead of a second full sort. On-chip at 4.19M entries
-the second 3-operand sort cost ~100 ms and a pos+payload double scatter
-~the same (docs/PERF_NOTES.md round-3 notes); the single pos_b scatter
-is the cheapest of the three formulations.
+its own rank) instead of a second full 3-operand sort or a pos+payload
+double scatter.
 
 Cost: one n-entry `lax.sort` + O(n) scans + one n-entry scatter.
 """
@@ -137,10 +135,8 @@ def canon_scans(cA: jnp.ndarray, pfA: jnp.ndarray, n_valid,
 
     # view-B positions: flag-major order within each run = sort by
     # (canon, flag, pos), with flag+pos packed into one int32 key (pos
-    # < 2^29 bounds the pipeline already). A second 2-operand sort beats
-    # the slot scatter this replaced on the real chip: 9.2 ms vs 28.9 ms
-    # at 4.19M rows (benchmarks/op_costs.py, fetch-forced — the round-3
-    # "scatter ~= sort" measurement was relay fiction). The sentinel
+    # < 2^29 bounds the pipeline already), in place of a slot scatter.
+    # The sentinel
     # tail orders identically to the scatter form: within the invalid
     # run, flag-0 entries in pos order then flag-1 entries in pos order.
     _, pfB = jax.lax.sort((cA, (fA << 30) | pA), num_keys=2)
@@ -163,11 +159,8 @@ def build_canonical_index(codes: jnp.ndarray, k: int,
     scan_broadcast=True (default) replaces the n-sized run-boundary
     gathers (``ones_cum[loA]``, ``fA[loA]``, ``ones_cum[hiA-1]``) with
     masked cummax / reverse-cummin segment broadcasts — bit-identical
-    (tests/unit/test_canonical.py) and 4.6x faster for the whole build
-    on chip (206.6 -> 44.8 ms at 4.19M entries, fetch-forced chain
-    timing 2026-08-21): benchmarks/op_costs.py measured gathers at ~8
-    cycles/element vs ~0.3 for scans, the opposite of the r1 folk model
-    that priced them equal. The gather form stays for reference."""
+    (tests/unit/test_canonical.py); scans stream where gathers read at
+    random. The gather form stays for reference."""
     canon, posfp, valid = canon_posfp(codes, k)
     n_valid = jnp.sum(valid.astype(jnp.int32))
     cA, pfA = jax.lax.sort((canon, posfp), num_keys=2)

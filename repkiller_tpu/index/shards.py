@@ -22,7 +22,7 @@ Two builders:
   (kmer, pos) arrays, then boundary slicing. Peak per-device transient
   is O(n); right for single-device runs where there is nothing to
   distribute.
-- :func:`build_sharded_index_dist` — the SURVEY.md §3.4 "DCN shuffle of
+- :func:`build_sharded_index_dist` — the SURVEY.md §3.4 "shuffle of
   (kmer, pos)" design (round-3 verdict item 4): the position space is
   split into n_device chunks, each device extracts + locally sorts only
   its chunk, entries shuffle to their owner shard over the mesh (XLA
@@ -247,7 +247,7 @@ def build_sharded_index_dist(
          blocks;
       4. shard_map shuffle + merge: an explicit ``lax.all_to_all`` over
          the shard axis routes each block to its owner column
-         (~8 bytes/entry over ICI/DCN), an ``all_gather`` over the data
+         (~8 bytes/entry over the interconnect), an ``all_gather`` over the data
          axis collects a shard's blocks from every chunk, and one local
          sort by (kmer, pos) merges them. Hand-placed collectives here
          because the equivalent sharded transpose makes the SPMD

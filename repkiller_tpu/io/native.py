@@ -1,10 +1,10 @@
 """ctypes bindings for the native host IO library (native/repkiller_io.cpp).
 
 The reference's C/C++ is its readers/writers/codec (SURVEY.md §2.1, §2.2);
-this module is the TPU-native framework's equivalent native layer. Every
-entry point has a numpy fallback with identical output, so the package
-works without a toolchain; when g++ is available the library is built
-once on demand (a few hundred ms) and cached next to its source.
+this module is the framework's equivalent native layer. Every entry
+point has a numpy fallback with identical output, so the package works
+without a toolchain; when g++ is available the library is built once on
+demand (a few hundred ms) and kept next to its source (git-ignored).
 
 Public surface:
   available() -> bool
@@ -29,17 +29,10 @@ _SRC = os.path.join(_ROOT, "native", "repkiller_io.cpp")
 
 
 def _so_path() -> str:
-    """Build target OUTSIDE the source tree (user cache dir), keyed by
+    """Build target inside the checkout, next to the source, keyed by
     source mtime so a changed .cpp never collides with a stale build."""
-    cache = os.environ.get("XDG_CACHE_HOME",
-                           os.path.join(os.path.expanduser("~"), ".cache"))
-    d = os.path.join(cache, "repkiller_tpu")
-    try:
-        os.makedirs(d, exist_ok=True)
-    except OSError:
-        d = os.path.join(os.path.dirname(_SRC))   # last resort: next to src
     tag = int(os.path.getmtime(_SRC)) if os.path.exists(_SRC) else 0
-    return os.path.join(d, f"librepkiller_io-{tag}.so")
+    return os.path.join(os.path.dirname(_SRC), f"librepkiller_io-{tag}.so")
 
 
 _SO = None   # resolved lazily in _load (depends on source mtime)

@@ -21,8 +21,8 @@ Spec (one direction; left extension runs the same DP on reversed suffixes):
 
   Because open >= 0 and H >= F, F simplifies to the within-row scan
   F(i,j) = max(ME(i,j-1) - open, F(i,j-1)) - ext with ME = max(M, E),
-  so rows depend only on the previous row (the wavefront the TPU kernel
-  uses). The band is stored as W = 2*band+1 lanes, lane o = column
+  so rows depend only on the previous row (the wavefront the device
+  kernels use). The band is stored as W = 2*band+1 lanes, lane o = column
   j = i - band + o; donors: diagonal at o, vertical at o+1, horizontal at
   o-1 in the current row.
 

@@ -52,8 +52,7 @@ def filter_hits(
     # compact kept hits to the front, preserving (diag, px) order: a
     # stable partition (one scatter + one row gather, trimmed to
     # out_capacity) instead of a second capacity-sized 3-operand sort.
-    # (px, py) ride ONE (n, 2) row gather — ~9 cyc/row vs 2 element
-    # gathers at ~8 cyc each (docs/PERF_NOTES.md corrected costs).
+    # (px, py) ride ONE (n, 2) row gather instead of two element gathers.
     order, _, n_kept = partition_live(keep)
     if out_capacity is not None and out_capacity < order.shape[0]:
         order = order[:out_capacity]

@@ -91,15 +91,13 @@ def owner_rows(counts: jnp.ndarray, offs: jnp.ndarray, capacity: int,
     block [offs, offs+count) contains t). Returns (capacity, 1+len(vals))
     int32 rows; callers derive the intra-block index as t - rows[:, 0].
 
-    Round-5 cost rework (docs/PERF_NOTES.md corrected primitive costs):
-    the old form scattered ALL n entry ids at their block starts — an
-    n-element scatter, 28.9 ms at the 4.19M-entry headline scale, even
-    though only the contributing entries (count > 0, at most `capacity`
-    of them since each produces >= 1 output) matter. One 1-key sort
-    (12.1 ms at 3 operands) compacts the contributors to a dense
-    offs-sorted prefix first, so the block-start scatter shrinks to
-    `capacity` elements (6.9 ms) and the per-slot value reads ride one
-    row gather from the compacted rows. The slot->owner mapping is
+    Scattering ALL n entry ids at their block starts would cost an
+    n-element scatter, though only the contributing entries (count > 0,
+    at most `capacity` of them since each produces >= 1 output) matter.
+    One 1-key sort compacts the contributors to a dense offs-sorted
+    prefix first, so the block-start scatter shrinks to `capacity`
+    elements and the per-slot value reads ride one row gather from the
+    compacted rows. The slot->owner mapping is
     unchanged (owner = last block start <= t, recovered by the same
     scatter + running max), so the output is bit-identical.
     """

@@ -43,8 +43,8 @@ def _expand(lo: jnp.ndarray, counts: jnp.ndarray, capacity: int,
             ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Slot t of the static-capacity output -> (source POSITION, partner
     index, valid, total). Owner recovery via seeds/join.owner_rows
-    (round-5 sort-compaction: the block-start scatter runs at capacity
-    size, not n — see its docstring for the measured-cost argument)."""
+    (sort-compaction: the block-start scatter runs at capacity size,
+    not n — see its docstring)."""
     n = counts.shape[0]
     csum = jnp.cumsum(counts)
     total = csum[-1] if n > 0 else jnp.int32(0)

@@ -2,7 +2,7 @@
 "each stage can dump/reload its arrays (np.save of index/hits/frags)
 behind --keep-intermediates; resume from any stage").
 
-The TPU-native analog of the reference's stage-per-binary design (each
+The device-pipeline analog of the reference's stage-per-binary design (each
 GECKO stage wrote its output file; a crashed pipeline resumed from the
 last file): device.compare_staged dumps each logical stage's arrays —
 thinned seeds per strand, extension fragments per strand, the merged

@@ -35,8 +35,7 @@ def partition_live(flag: jnp.ndarray):
     array ``R`` maps back to slot order as ``R[dest]``. Built from one
     cumsum and ONE scatter — a capacity-sized ``argsort`` pair or a
     compaction ``lax.sort`` costs several full passes for the same
-    permutation (docs/PERF_NOTES.md "Scatters": one scatter ~ one sort
-    PASS)."""
+    permutation."""
     n = flag.shape[0]
     c = jnp.cumsum(flag.astype(jnp.int32))
     n_live = c[-1]

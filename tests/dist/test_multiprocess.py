@@ -11,8 +11,8 @@ and prove:
 - dist.merge.gather_fragments reassembles per-process row blocks into
   the canonical global table identically on every rank.
 
-Everything rides XLA collectives — the same code path that runs over
-ICI/DCN on a real pod, minus the physical interconnect.
+Everything rides XLA collectives — the same code path that runs across
+hosts, minus the physical interconnect.
 """
 
 import os

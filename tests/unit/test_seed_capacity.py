@@ -36,7 +36,7 @@ def test_seed_capacity_overflow_raises():
 
 def test_seed_capacity_banded_pallas_gated():
     g = _genome()
-    cfg = CFG.replace(extend_mode="banded", band=4, banded_impl="pallas",
+    cfg = CFG.replace(extend_mode="banded", band=4, banded_impl="pallas_interpret",
                       gate_stride=128, seed_capacity=1 << 11)
     got = device.compare(g.codes, None, cfg)
     want = orc.compare(g.codes, None, cfg)
